@@ -1,12 +1,13 @@
-"""mitsuba3dopplertof_tpu — a TPU-native Doppler Time-of-Flight renderer.
+"""mitsuba3dopplertof_tpu — a Doppler Time-of-Flight renderer in JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
 juhyeonkim95/Mitsuba3DopplerToF ("Doppler Time-of-Flight Rendering",
 SIGGRAPH Asia 2023): a Monte Carlo path tracer whose radiance is weighted by
 the time-correlation of amplitude-modulated illumination against a sensor
 modulation waveform, with correlated/antithetic time sampling and rigid-body
-motion blur — redesigned TPU-first (SoA wavefronts, masked type dispatch,
-counter-exact functional RNG, shard_map scale-out) rather than ported.
+motion blur — redesigned for accelerators (SoA wavefronts, masked type
+dispatch, counter-exact functional RNG, shard_map scale-out) rather than
+ported. It runs on NVIDIA GPUs and, more slowly, on the CPU.
 
 Public API mirrors the reference's Python surface:
 
@@ -19,32 +20,39 @@ from __future__ import annotations
 
 __version__ = "0.1.0"
 
-# Persistent XLA compilation cache: large-scene programs carry variadic
-# device-wide sorts (ops/ray_binning.py) whose TPU lowering compiles in
-# O(minutes); caching makes that a once-per-scene-shape cost across
-# processes. Opt out with MI_NO_COMPILE_CACHE=1.
 import os as _os
 
-if not _os.environ.get("MI_NO_COMPILE_CACHE"):
-    try:
-        import jax as _jax
+# Persistent XLA compilation cache. A render program takes tens of seconds
+# to compile; the cache makes that a once-per-scene-shape cost across
+# processes. Where JAX_COMPILATION_CACHE_DIR is set, JAX reads it itself
+# and nothing is set here; otherwise the cache lives at a fixed directory
+# inside the checkout (a fixed path, so later processes find it again).
+# Opt out with MI_NO_COMPILE_CACHE=1.
+COMPILE_CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache")
 
-        _cache_dir = _os.environ.get(
-            "JAX_COMPILATION_CACHE_DIR",
-            _os.path.join(_os.path.expanduser("~"), ".cache",
-                          "mitsuba3dopplertof_tpu", "xla"))
-        _os.makedirs(_cache_dir, exist_ok=True)
-        _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-    except Exception:           # cache is an optimization, never a failure
-        pass
 
-# NaN sanitizer (SURVEY §5 race/sanitizer analog — the TPU-native
-# equivalent of running the reference under compute-sanitizer): with
-# MI_DEBUG_NANS=1 every jitted program that produces a NaN re-runs
-# op-by-op and raises at the first NaN-producing primitive. Combine with
-# MI_NO_FUSED_PASSES=1 to bisect by pass and MI_NO_RAY_BINNING=1 to keep
-# the wavefront in pixel order while reading the failing values.
+def _compile_cache_dir(environ=_os.environ):
+    """Directory this package sets as JAX's compile cache (None: leave the
+    cache to JAX's own settings)."""
+    if environ.get("MI_NO_COMPILE_CACHE") or environ.get(
+            "JAX_COMPILATION_CACHE_DIR"):
+        return None
+    return COMPILE_CACHE_DIR
+
+
+if _compile_cache_dir() is not None:
+    import jax as _jax
+
+    _jax.config.update("jax_compilation_cache_dir", _compile_cache_dir())
+    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+
+# NaN sanitizer (SURVEY §5 race/sanitizer analog, in place of running the
+# reference under compute-sanitizer): with MI_DEBUG_NANS=1 every jitted
+# program that produces a NaN re-runs op-by-op and raises at the first
+# NaN-producing primitive. Combine with MI_NO_FUSED_PASSES=1 to bisect by
+# pass.
 if _os.environ.get("MI_DEBUG_NANS"):
     import jax as _jax_dbg
 

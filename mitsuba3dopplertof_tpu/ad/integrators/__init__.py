@@ -3,7 +3,7 @@
 The reference builds Path Replay Backpropagation on Dr.Jit's tape: the
 forward pass records nothing, and the backward pass *replays* each path
 with the same RNG to reconstruct per-bounce state in O(1) memory
-(prb.py, prb_basic.py). The TPU-native analog: the whole render pass is a
+(prb.py, prb_basic.py). The analog here: the whole render pass is a
 pure jitted function of the scene tables, so reverse-mode AD through the
 lax.fori_loop bounce loop gives the SAME detached-sampling gradient
 estimator; `jax.checkpoint` (rematerialization) over the pass body is the

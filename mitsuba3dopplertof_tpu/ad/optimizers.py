@@ -1,7 +1,7 @@
 """Gradient-based optimizers over scene parameters
 (reference src/python/python/ad/optimizers.py).
 
-TPU-native difference: there is no in-place autodiff tape — gradients come
+Difference: there is no in-place autodiff tape — gradients come
 out of ``jax.grad`` / ``mi.ad.render_grad`` as a dict, so ``step(grads)``
 takes them explicitly instead of reading ``.grad`` off the variables.
 Everything else matches the reference surface: dict-like access over the

@@ -3,7 +3,7 @@
 Implements "Unbiased Warped-Area Sampling for Differentiable Rendering"
 (Bangaru, Li, Durand, SIGGRAPH'20) following the reference's estimator
 (reference src/python/python/ad/reparam.py:10-123 `_sample_warp_field`,
-:126-409 `_ReparameterizeOp`) — but TPU/JAX-native: instead of a Dr.Jit
+:126-409 `_ReparameterizeOp`) — but JAX-native: instead of a Dr.Jit
 CustomOp with hand-written forward/backward replay loops, the estimator is
 expressed with stop-gradient algebra so that
 
@@ -70,7 +70,7 @@ def _followshape_position(sa, hit, time, ray_o=None, ray_d=None) -> Vec3:
     through the attached one, so the tangent is dM applied at the fixed
     object point. Requires ``ray_o``/``ray_d`` (the ray that produced
     ``hit``) when the scene has spheres."""
-    from ..ops.intersect_kernel import _SPH_SLOT_BASE
+    from ..render.types import SPH_SLOT_BASE as _SPH_SLOT_BASE
     prim = sg(hit.prim)
     u = sg(hit.u)
     v = sg(hit.v)
@@ -148,7 +148,7 @@ def _boundary_test(sa, hit, d: Vec3) -> jnp.ndarray:
     boundary. Meshes: barycentric distance to the nearest edge scaled so
     the barycenter is 1 (the flat-shading branch of mesh.cpp:835-852);
     spheres: |dot(n, -d)| (sphere.cpp:570)."""
-    from ..ops.intersect_kernel import _SPH_SLOT_BASE
+    from ..render.types import SPH_SLOT_BASE as _SPH_SLOT_BASE
     u, v = hit.u, hit.v
     w = 1.0 - u - v
     b_mesh = 3.0 * jnp.minimum(jnp.minimum(u, v), w)

@@ -4,7 +4,7 @@ Dupuy & Jakob adaptive-parameterization RGL format).
 The reference samples micro-normals through parameterized `Marginal2D`
 warps (reference include/mitsuba/core/distr_2d.h) — marginal/conditional
 CDF inversion over a unit-square density, multilinearly interpolated over
-incident-direction (and wavelength) parameters. TPU-native equivalent:
+incident-direction (and wavelength) parameters. Here:
 the CDF tables are precomputed on the host per parameter slice, and the
 per-lane warp runs a fixed-depth *vectorized binary search* whose CDF
 values are corner-blended on the fly (2^K gathers per probe), so every

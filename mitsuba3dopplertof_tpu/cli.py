@@ -5,11 +5,11 @@ binary (reference src/mitsuba/mitsuba.cpp:150-424).
 
 Flags mirror the reference: -D key=value scene parameter overrides,
 -o output, -s SENSOR INDEX, -a extra file-resolver paths, -v verbosity,
--m variant (reference names map onto the tpu variants: *_rgb -> tpu_rgb,
+-m variant (reference names map onto this package's variants: *_rgb -> tpu_rgb,
 *_spectral -> tpu_spectral, *_mono -> tpu_mono, *_polarized ->
 tpu_rgb_polarized), -u rewrites the scene XML through the loader
 (version upgrade). -t/--threads is accepted and ignored (XLA owns
-scheduling; the reference's JIT flags -O/-W/-V likewise have no TPU
+scheduling; the reference's JIT flags -O/-W/-V likewise have no
 analog). Extras beyond the reference: --spp, --seed, --png.
 """
 
@@ -36,7 +36,7 @@ def _map_variant(name: str) -> str:
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="mitsuba3dopplertof-tpu",
-        description="TPU-native Doppler ToF renderer")
+        description="Doppler ToF renderer")
     ap.add_argument("scene", help="scene XML file")
     ap.add_argument("-o", "--output", default=None,
                     help="output EXR (default: scene name .exr)")

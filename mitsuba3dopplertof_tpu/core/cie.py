@@ -311,8 +311,8 @@ def coeff_lattice(n: int = _LATTICE_N) -> np.ndarray:
     if _LATTICE is not None and _LATTICE.shape[0] == n:
         return _LATTICE
     import os
-    cache_dir = os.path.join(os.path.expanduser("~"), ".cache",
-                             "mitsuba3dopplertof_tpu")
+    from .fresolver import cache_dir as _cache_dir
+    cache_dir = _cache_dir()
     path = os.path.join(cache_dir, f"rgb2spec_{n}.npz")
     if os.path.exists(path):
         _LATTICE = np.load(path)["lattice"]

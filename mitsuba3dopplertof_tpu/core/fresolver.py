@@ -58,4 +58,12 @@ def resolve_filename(name: str) -> str:
     return _resolver.resolve(name)
 
 
-__all__ = ["FileResolver", "file_resolver", "resolve_filename"]
+def cache_dir(*parts: str) -> str:
+    """Directory for generated data (fitted tables, procedural assets)
+    inside the checkout: ``<checkout>/.cache/<parts>``."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    return os.path.join(root, ".cache", *parts)
+
+
+__all__ = ["FileResolver", "file_resolver", "resolve_filename", "cache_dir"]

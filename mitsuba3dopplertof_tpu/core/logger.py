@@ -1,6 +1,6 @@
 """Leveled logging + progress reporting + profiler hooks.
 
-TPU-native analog of the reference's observability stack:
+Analog of the reference's observability stack:
 
   * Logger/Appender/Formatter (reference src/core/logger.cpp,
     appender.cpp, formatter.cpp): leveled console logging with the
@@ -11,8 +11,8 @@ TPU-native analog of the reference's observability stack:
     `profile_phase` wraps jax.named_scope so phases (Intersect /
     SampleEmitter / BSDFEvaluate / FilmPut...) appear in XLA/Perfetto
     traces captured with `trace_to` — one flag turns on a per-phase trace
-    viewable in Perfetto (ui.perfetto.dev), the TPU equivalent of
-    ITT/NVTX forwarding.
+    viewable in Perfetto (ui.perfetto.dev), in place of ITT/NVTX
+    forwarding.
 """
 
 from __future__ import annotations
@@ -116,8 +116,8 @@ def trace_to(path: str):
         with mi.trace_to("/tmp/mi_trace"):
             mi.render(scene)
 
-    (reference: VTune/NSight forwarding, CMakeLists.txt:41-42; the TPU
-    equivalent is the jax.profiler trace)."""
+    (reference: VTune/NSight forwarding, CMakeLists.txt:41-42; here the
+    jax.profiler trace)."""
     import jax
     jax.profiler.start_trace(path)
     try:

@@ -12,7 +12,7 @@ framework's component-wise SoA layout:
 All entries are (N,)-wavefront arrays; rotators and other
 wavelength-independent elements share the same array across the three
 channels (XLA CSEs the duplicates). Complex arithmetic is spelled out as
-(re, im) pairs — no complex dtypes, TPU-friendly.
+(re, im) pairs — no complex dtypes.
 """
 
 from __future__ import annotations

@@ -119,7 +119,7 @@ class Properties:
 
 
 # ---------------------------------------------------------------------------
-# Plugin registry — the TPU-native stand-in for PluginManager::create_object
+# Plugin registry — the stand-in for PluginManager::create_object
 # ---------------------------------------------------------------------------
 
 _REGISTRY: Dict[str, Dict[str, Callable]] = {}

@@ -7,7 +7,7 @@ Faure or seeded-random digit scrambling, plus the specialised base-2
 bit-reversal (`radical_inverse_2`, qmc.h:189-210) and scrambled Sobol'
 second dimension (`sobol_2`, qmc.h:217-232).
 
-TPU-native design notes: all evaluators are vectorised jnp functions of an
+Design notes: all evaluators are vectorised jnp functions of an
 index array; the digit loop is a *Python* loop over a static digit count
 (unrolled at trace time — bases and table sizes are compile-time
 constants), so everything jits with static shapes. Permutation tables are
@@ -156,7 +156,7 @@ def sobol_2(index, scramble=0) -> jnp.ndarray:
     """Sobol' sequence second dimension with XOR scramble (qmc.h:217-232).
 
     The direction-number recurrence is unrolled over the 32 static bits
-    (the reference uses a dr::Loop; on TPU a static unroll jits to pure
+    (the reference uses a dr::Loop; a static unroll jits to pure
     vector ops with no loop-carried control flow).
     """
     idx = jnp.asarray(index, jnp.uint32)

@@ -1,6 +1,6 @@
 """Counter-exact PCG32 / TEA / Kensler RNG primitives in pure uint32 jnp.
 
-TPU-native rebuild of the reference RNG stack:
+Rebuild of the reference RNG stack:
   * ``sample_tea_32``      — reference include/mitsuba/core/random.h:77
   * ``PCG32``              — drjit PCG32 (O'Neill pcg32), stateful streams used by
                              reference src/render/sampler.cpp:115-135 and
@@ -11,7 +11,7 @@ Design: JAX has no mutable RNG objects, so PCG32 state is an explicit
 (state_hi, state_lo, inc_hi, inc_lo) uint32 pytree threaded functionally
 through the render loop.  All 64-bit arithmetic is emulated with 32-bit limbs
 (16-bit partial products for the multiply) so the kernels never require
-jax_enable_x64 and stay on the TPU's native 32-bit VPU lanes.
+jax_enable_x64 and stay in native 32-bit integer arithmetic.
 
 The implementation is *bitwise exact* vs. the reference: seeding a lane with
 TEA(seed, lane) and drawing floats produces the identical sequence the

@@ -1,6 +1,6 @@
 """Generic binary stream layer (host-side I/O).
 
-TPU-native rebuild of the reference's stream abstraction
+Rebuild of the reference's stream abstraction
 (reference include/mitsuba/core/stream.h, src/core/{stream,fstream,
 mstream,zstream,dstream,mmap}.cpp): a byte-oriented ``Stream`` base with
 endianness-aware typed serialization, concrete file/memory/compressed/

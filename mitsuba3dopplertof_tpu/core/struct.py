@@ -3,7 +3,7 @@
 Rebuild of the reference's Struct / StructConverter
 (reference include/mitsuba/core/struct.h, src/core/struct.cpp — there an
 asmjit x86 JIT; here vectorized numpy, which IS the fast bulk-conversion
-engine on a TPU host). Drives bitmap pixel-format conversion and any
+engine on the host). Drives bitmap pixel-format conversion and any
 user-described binary record translation.
 
 Supported semantics (struct.h:47-92 flags):

@@ -12,11 +12,13 @@ Reference semantics:
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Tuple
 
 import numpy as np
 import jax.numpy as jnp
+from jax import lax
 
 
 # ---------------------------------------------------------------------------
@@ -94,25 +96,28 @@ def perspective(fov_x_deg: float, near: float, far: float) -> np.ndarray:
 # Device-side transform application (jnp, batched over lanes)
 # ---------------------------------------------------------------------------
 
+# device matrix products run at full f32 precision: the GPU's default for
+# f32 matmuls may be TF32 (about three decimal digits)
+_mm = functools.partial(jnp.matmul, precision=lax.Precision.HIGHEST)
+
+
 def transform_point(m, p):
     """Apply affine 4x4 ``m`` (shape (...,4,4)) to points ``p`` (...,3)."""
-    return (
-        m[..., :3, :3] @ p[..., None]
-    )[..., 0] + m[..., :3, 3]
+    return _mm(m[..., :3, :3], p[..., None])[..., 0] + m[..., :3, 3]
 
 
 def transform_vector(m, v):
-    return (m[..., :3, :3] @ v[..., None])[..., 0]
+    return _mm(m[..., :3, :3], v[..., None])[..., 0]
 
 
 def transform_normal(m_inv, n):
     """Normals transform by the inverse transpose: pass the *inverse* matrix."""
-    return (jnp.swapaxes(m_inv[..., :3, :3], -1, -2) @ n[..., None])[..., 0]
+    return _mm(jnp.swapaxes(m_inv[..., :3, :3], -1, -2), n[..., None])[..., 0]
 
 
 def affine_inverse(m):
     """Closed-form inverse of an affine 4x4 (batched). Inverts the 3x3 block
-    by adjugate and back-solves the translation — ~40 VPU flops per lane,
+    by adjugate and back-solves the translation — ~40 flops per lane,
     cheap enough to run per-ray for animated instances."""
     a = m[..., :3, :3]
     t = m[..., :3, 3]
@@ -133,7 +138,7 @@ def affine_inverse(m):
         jnp.stack([c10, c11, c12], axis=-1),
         jnp.stack([c20, c21, c22], axis=-1),
     ], axis=-2) * inv_det[..., None, None]
-    new_t = -(inv3 @ t[..., None])[..., 0]
+    new_t = -_mm(inv3, t[..., None])[..., 0]
     bottom = jnp.broadcast_to(
         jnp.array([0.0, 0.0, 0.0, 1.0], dtype=m.dtype), m[..., :1, :4].shape)
     top = jnp.concatenate([inv3, new_t[..., None]], axis=-1)

@@ -1,11 +1,9 @@
-"""Component-wise 3-vector math — the TPU-native data layout.
+"""Component-wise 3-vector math — the wavefront's data layout.
 
-On TPU, arrays are tiled (8 sublanes x 128 lanes) over their two minor
-dimensions, so an (N, 3) vector array pads its minor dim 3 -> 128 and wastes
-125/128 of every vector register and HBM word. The native layout is SoA all
-the way down: a Vec3 is three independent (N,) arrays, each perfectly packed.
-Every renderer-hot op (dot/cross/normalize/transform) is written against this
-layout; measured ~40x faster than (N,3) math on v5e.
+A Vec3 is three independent (N,) arrays (structure of arrays), so every
+renderer-hot op (dot/cross/normalize/transform) is plain elementwise math
+on densely packed lanes that XLA fuses, with unit-stride loads per
+component.
 
 Vec3 is a pytree (NamedTuple), so it flows through jit/scan/vmap/shard_map.
 """

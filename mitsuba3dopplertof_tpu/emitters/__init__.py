@@ -1,4 +1,4 @@
-"""Emitter plugins + TPU-side sampling.
+"""Emitter plugins + device-side sampling.
 
 Reference inventory: src/emitters/{point,area,constant,envmap,directional,
 spot,projector,directionalarea}.cpp. Device-side sampling follows the masked
@@ -833,9 +833,8 @@ def envmap_eval(sa, d: Vec3, wavelengths=None):
 def build_alias(p: np.ndarray):
     """Vose alias table for the discrete pmf ``p`` (host-side, O(n)).
     Sampling is then exact with TWO gathers (prob + alias) instead of a
-    log2(n)-round binary search over the CDF — per-lane searchsorted
-    chains serialize on the TPU scalar core and dominated envmap NEE in
-    the hero scene."""
+    log2(n)-round binary search over the CDF (a dependent chain of
+    gathers per lane)."""
     n = p.size
     scaled = p.astype(np.float64) * n
     alias = np.arange(n, dtype=np.int32)

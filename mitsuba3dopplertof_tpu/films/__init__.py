@@ -1,10 +1,10 @@
-"""Film plugins + the TPU-native image accumulation.
+"""Film plugins + the wavefront image accumulation.
 
 The reference accumulates weighted samples with atomic scatter_reduce
 (reference src/render/imageblock.cpp:119-127,174-400) and develops
 rgb = value / weight (reference src/films/hdrfilm.cpp:305+).
 
-TPU-native design: NO scatters. The wavefront is pixel-major (lane =
+Design: NO scatters. The wavefront is pixel-major (lane =
 pixel*spp + s), so per-pixel accumulation is a *reshape + reduce* — a dense
 segment sum XLA turns into a single pass. Reconstruction-filter footprints
 reach only pixels within ceil(radius) of the sample's own pixel, so the
@@ -12,8 +12,8 @@ splat decomposes into (2K+1)^2 shifted dense images added with static
 offsets. Deterministic by construction (fixed reduction order), which the
 reference's atomics are not.
 
-Block layout is (C, H, W): minor dims (H, W) tile perfectly; an (H, W, C)
-layout would pad C -> 128 lanes (see core/vec.py).
+Block layout is (C, H, W): one dense (H, W) plane per channel, the film's
+analog of the component-wise wavefront layout (see core/vec.py).
 """
 
 from __future__ import annotations
@@ -253,9 +253,8 @@ def block_splat_scatter(block, px, py, values: List, active,
     reference imageblock.cpp:119-127): sort the records by flat pixel id,
     segment-sum via cumulative sums, and add the dense per-pixel image.
 
-    XLA scatter-adds serialize on this TPU (~30-90M elems/s) and their
-    latency is unstable; one variadic sort + cumsum + a sort-based
-    searchsorted is both faster and deterministic. ``values`` is a list of
+    One variadic sort + cumsum + a sort-based searchsorted replaces a
+    scatter-add and, unlike atomics, is deterministic. ``values`` is a list of
     C (N,) channel arrays added to block[c, row0+py, px]."""
     C = len(values)
     n = px.shape[0]

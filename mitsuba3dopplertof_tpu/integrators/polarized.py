@@ -4,7 +4,7 @@ integrator.
 The reference's polarized variants promote Spectrum to a Mueller matrix and
 thread basis rotations through every BSDF interaction (reference
 src/integrators/path.cpp:222,235 `to_world_mueller`, stokes.cpp:88-131).
-TPU-native equivalent: the wavefront bounce loop below mirrors the scalar
+Here: the wavefront bounce loop below mirrors the scalar
 `_path_loop` draw-for-draw (identical sampler stream consumption) while
 additionally carrying a 4x4 Mueller throughput in SoA form (16 Vec3 columns).
 

@@ -660,13 +660,9 @@ class PTracerIntegrator(SamplingIntegrator):
 
         block = jnp.zeros((4, H, W), jnp.float32)
         if n_passes > 1 and not os.environ.get("MI_NO_FUSED_PASSES"):
-            # fuse the pass loop into few device dispatches with a DYNAMIC
-            # fori bound (compiles once for any group size), mirroring the
-            # camera path's multi-pass fusion (integrators/__init__.py
-            # _get_multi_pass_fn): a per-pass host round trip through the
-            # runtime costs 10s-100s of ms, which dominated the ptracer
-            # bench row (16 dispatches per render, 71% spread). Groups are
-            # bounded ~15s so one dispatch cannot trip the device watchdog.
+            # fuse the pass loop into one device dispatch with a traced
+            # fori bound, mirroring the camera path's multi-pass fusion
+            # (integrators/__init__.py _get_multi_pass_fn)
             raw = light_pass.__wrapped__ if hasattr(light_pass, "__wrapped__") \
                 else light_pass
 
@@ -677,18 +673,8 @@ class PTracerIntegrator(SamplingIntegrator):
                     return b, sampler.advance(s)
                 return jax.lax.fori_loop(0, n, body, (blk, st))
 
-            fused = jax.jit(run_passes)
-            done = 0
-            group = 1
-            import time as _time
-            while done < n_passes:
-                g = min(group, n_passes - done)
-                t0 = _time.time()
-                block, state = fused(sa, block, state, jnp.int32(g))
-                jax.block_until_ready(block)
-                per_pass = max((_time.time() - t0) / g, 1e-4)
-                done += g
-                group = max(1, min(int(15.0 / per_pass), n_passes - done))
+            block, state = jax.jit(run_passes)(sa, block, state,
+                                               jnp.int32(n_passes))
         else:
             for p in range(n_passes):
                 block, state = light_pass(sa, block, state)

@@ -111,7 +111,7 @@ def _sggx_S6(sa, medium, p: Vec3, S6_const):
     S grid at the interaction point (reference sggx.cpp eval_ndf_params ->
     gridvolume eval_6). Media without an S grid (M_SGGX_NX == 0) keep
     their constant M_SGGX entries. Eight (V, 6) row-gathers per lane —
-    row-gathers stay on the fast path (see ops/intersect_mxu.py), and the
+    row-gathers, and the
     blend weights are shared across the six channels."""
     from ..media import M_SGGX_OFF, M_SGGX_NX, M_SGGX_NY, M_SGGX_NZ
     idx = jnp.maximum(medium, 0)

@@ -1,1 +1,1 @@
-"""TPU kernels (Pallas) and native host helpers."""
+"""GPU kernels (Pallas), BVH traversal and native host helpers."""

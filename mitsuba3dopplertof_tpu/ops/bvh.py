@@ -1,16 +1,15 @@
-"""Bounding-volume hierarchy for large static meshes.
+"""Bounding-volume hierarchy for large meshes.
 
 The reference accelerates rays with Embree BVHs / OptiX GASes (reference
-src/render/scene_embree.inl, scene_optix.inl). TPU-native equivalent: a
-host-built threaded BVH (DFS order + escape links, leaf size <= 4) traversed
-*stacklessly* over the whole wavefront in pure XLA — each lane carries one
-node pointer, a `lax.while_loop` steps all lanes until every lane walks off
-the root's escape link. Node AABBs and leaf triangles are fetched with
-vector gathers, so the traversal is branch-free per lane: hit an inner node
--> descend to node+1 (first child in DFS order); miss -> jump to the escape
-index. This keeps control flow compiler-friendly (no per-lane divergence,
-one uniform loop) at the cost of gathers — the right trade on TPU, where
-the alternative O(T) scan dominates above a few thousand triangles.
+src/render/scene_embree.inl, scene_optix.inl). Here: a host-built threaded
+BVH (DFS order + escape links, leaf size <= 4) traversed *stacklessly* over
+the whole wavefront in pure XLA — each lane carries one node pointer, a
+`lax.while_loop` steps all lanes until every lane walks off the root's
+escape link. Node AABBs and leaf triangles are fetched with vector gathers,
+so the traversal is branch-free per lane: hit an inner node -> descend to
+node+1 (first child in DFS order); miss -> jump to the escape index. Every
+lane waits for the slowest lane of the wavefront; a per-thread traversal
+kernel is the GPU's own idiom and is left for later (ROADMAP).
 
 Build: binned-median split on the longest centroid axis (host numpy).
 """
@@ -24,7 +23,10 @@ import jax
 import jax.numpy as jnp
 
 LEAF_SIZE = 4
-BVH_THRESHOLD = 4096      # static-tri count above which the BVH kicks in
+# triangle count of the static set, or of one animated instance, above
+# which ray queries traverse a BVH instead of scanning every triangle
+# (set from a hero-scene render on an H100, see PERF.md)
+BVH_THRESHOLD = 64
 
 
 class BVHArrays(NamedTuple):

@@ -1,4 +1,4 @@
-// Minimal C ABI shim over libOpenEXR for the TPU renderer's Bitmap layer.
+// Minimal C ABI shim over libOpenEXR for the renderer's Bitmap layer.
 // Equivalent role to the reference's EXR path in src/core/bitmap.cpp (which
 // links OpenEXR directly); exposed to Python via ctypes.
 #include <ImfInputFile.h>

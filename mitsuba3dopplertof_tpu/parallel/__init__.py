@@ -2,12 +2,12 @@
 
 The reference is single-device; its only "collective" is an in-device
 atomic scatter into the film (reference src/render/imageblock.cpp:119-127).
-The TPU-native layout (SURVEY.md §2.6): pure data parallelism over
-pixels x spp on a 1-D device mesh — each chip renders a contiguous
+The layout (SURVEY.md §2.6): pure data parallelism over pixels x spp on
+a 1-D device mesh — each device renders a contiguous
 pixel-major lane range (correlation groups never straddle shards because
 shards split on pixel boundaries and time_correlate_number divides spp),
-accumulates a full-resolution partial film, and one psum over ICI merges
-films at develop time. Deterministic: fixed tree-reduction order, unlike
+accumulates its rows of the film, and a halo exchange with its neighbours
+(or one psum) merges films at develop time. Deterministic: fixed tree-reduction order, unlike
 the reference's atomics.
 
 Multi-host runs use the same program under jax.distributed with per-host

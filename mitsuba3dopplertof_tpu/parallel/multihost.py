@@ -1,5 +1,5 @@
-"""Multi-host data parallelism across DCN (SURVEY.md §2.6 TPU-native
-target; the reference's only multi-machine story is launching N processes
+"""Multi-host data parallelism across hosts (SURVEY.md §2.6 target; the
+reference's only multi-machine story is launching N processes
 with per-run seeds and averaging the outputs, reference
 doppler_tutorials/src/program_runner.py:15-23).
 
@@ -12,14 +12,15 @@ Two modes, matching the two ways the reference workloads scale out:
     RNG correlation groups intact, so the result is bit-identical to the
     single-device render of the same seed). Host-local inputs are lifted
     to global arrays with `jax.make_array_from_callback`; the film halo
-    exchange rides ICI within a host and DCN across hosts, and the
-    developed film is allgathered back to every process.
+    exchange rides the device interconnect within a host and the network
+    across hosts, and the developed film is allgathered back to every
+    process.
 
 ``render_multihost(..., mode="passes")``
     The reference's program_runner pattern: host h renders passes
     seed0 + h, seed0 + h + n_hosts, ... entirely on its LOCAL devices
     (no cross-host traffic during rendering), and the per-host
-    accumulation blocks are summed across DCN once at the end. Linear
+    accumulation blocks are summed across hosts once at the end. Linear
     scaling for the paper's 4096-16384 spp animation workloads where a
     single pass already fills a host.
 
@@ -39,9 +40,9 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 def init_multihost(coordinator_address: str = None,
                    num_processes: int = None, process_id: int = None,
                    local_device_count: int = None) -> None:
-    """Initialize jax.distributed for a multi-process run. On TPU pods
-    the arguments are auto-detected from the environment; on CPU/GPU
-    fleets pass them explicitly. ``local_device_count`` forces N virtual
+    """Initialize jax.distributed for a multi-process run. Pass the
+    coordinator address, process count and id explicitly unless a cluster
+    environment JAX recognises provides them. ``local_device_count`` forces N virtual
     CPU devices per process (test topologies)."""
     if local_device_count is not None:
         import os

@@ -4,7 +4,7 @@ Layout contract (SURVEY.md §2.6): the wavefront is pixel-major, shards are
 contiguous lane ranges aligned to pixel ROW boundaries, so RNG correlation
 groups (time_correlate_number consecutive lanes) never straddle devices.
 Each device splats its pixel rows into a local canvas; one psum over the
-mesh axis merges films — the TPU equivalent of the reference's atomic film
+mesh axis merges films — the counterpart of the reference's atomic film
 scatter (reference src/render/imageblock.cpp:119-127), but deterministic.
 
 Feature parity: the per-lane sampling body is the SAME
@@ -21,15 +21,8 @@ from __future__ import annotations
 import numpy as np
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
-try:                                  # jax >= 0.8 moved it to the top level
-    from jax import shard_map as _shard_map_new
-
-    def shard_map(f, mesh, in_specs, out_specs, check_rep=False):
-        return _shard_map_new(f, mesh=mesh, in_specs=in_specs,
-                              out_specs=out_specs, check_vma=check_rep)
-except ImportError:                   # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
 
 from ..films import block_create, block_splat_wavefront, develop
 
@@ -126,7 +119,7 @@ def render_sharded(integrator, scene, mesh: Mesh = None, sensor=None,
             body = body.at[:, rows_local - _PAD:].add(from_next)
             return body, state                      # stays row-sharded
 
-        # fallback: place on a padded full canvas, all-reduce over ICI
+        # fallback: place on a padded full canvas, all-reduce over the mesh
         canvas = jnp.zeros((n_ch, Hp + 2 * _PAD, W), jnp.float32)
         canvas = jax.lax.dynamic_update_slice(canvas, local, (0, row0, 0))
         canvas = jax.lax.psum(canvas, axis)
@@ -146,7 +139,7 @@ def render_sharded(integrator, scene, mesh: Mesh = None, sensor=None,
         shard_pass, mesh=mesh,
         in_specs=(P(), state_spec, P(axis)),
         out_specs=(film_spec, state_spec),
-        check_rep=False)
+        check_vma=False)
 
     dev_lane0 = jnp.arange(D, dtype=jnp.uint32) * jnp.uint32(n_local)
     jitted = jax.jit(shard_fn)

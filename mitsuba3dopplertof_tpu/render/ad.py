@@ -2,7 +2,7 @@
 
 The reference ships a Python AD-integrator family (path-replay backprop,
 reference src/python/python/ad/integrators/*.py) on top of Dr.Jit's tape.
-The TPU-native equivalent needs none of that machinery: the whole render
+This rebuild needs none of that machinery: the whole render
 pass is a pure jitted function of the scene tables, so ``jax.grad``
 differentiates it directly. Monte Carlo sample *decisions* (directions, RR)
 depend only on the RNG bits, so gradients w.r.t. continuous shading
@@ -75,14 +75,14 @@ def _render_image_fn(integrator, scene, sensor, spp, seed, max_lanes):
                                       spp_per_pass).raw
 
     def f(diff_params: Dict[str, jnp.ndarray]):
-        # AD renders trace through the differentiable oracle intersector:
-        # the Pallas kernels define no VJP, and geometry gradients
+        # AD renders trace through the differentiable XLA intersector: the
+        # GPU kernel defines no VJP, and geometry gradients
         # (GEOM_DIFF_FIELDS) only flow through the XLA path
         from . import scene as _scene_mod
         from .. import integrators as _integ_mod
-        old_pallas = _scene_mod.USE_PALLAS
+        old_kernel = _scene_mod.USE_CUSTOM_KERNEL
         old_static = _integ_mod._STATIC_BOUNCE_LOOP
-        _scene_mod.USE_PALLAS = False
+        _scene_mod.USE_CUSTOM_KERNEL = False
         # while_loop (the primal early-exit bounce loop) has no VJP
         _integ_mod._STATIC_BOUNCE_LOOP = True
         try:
@@ -98,7 +98,7 @@ def _render_image_fn(integrator, scene, sensor, spp, seed, max_lanes):
                 state = sampler.advance(state)
             return develop(block, film.has_alpha)
         finally:
-            _scene_mod.USE_PALLAS = old_pallas
+            _scene_mod.USE_CUSTOM_KERNEL = old_kernel
             _integ_mod._STATIC_BOUNCE_LOOP = old_static
 
     return f, sa

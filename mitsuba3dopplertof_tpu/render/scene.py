@@ -2,16 +2,16 @@
 
 The reference assembles an object graph then uploads acceleration structures
 (reference src/render/scene.cpp:22-101, scene_optix.inl / scene_embree.inl).
-TPU-native equivalent: the host compiles the shape graph into flat
-*component-wise* triangle / instance / BSDF / emitter tables (each column a
-perfectly-packed (T,) array — see core/vec.py for the layout rationale), and
-ray queries are jnp programs over those tables that fuse into the
+Here the host compiles the shape graph into flat *component-wise* triangle
+/ instance / BSDF / emitter tables (each column a packed (T,) array, see
+core/vec.py), and ray queries are programs over those tables inside the
 integrator's bounce loop.
 
-Intersection runs a lax.scan with ONE triangle per step over (N,)-shaped
-lanes — dense, regular VPU work, optimal for small/medium scenes; a
-two-level Pallas BVH kernel slots in behind the same ``ray_intersect``
-signature for large scenes (SURVEY.md §7 "hard parts" #1).
+Ray queries (``ray_query_route``): on the GPU, small scenes take one fused
+Pallas kernel (ops/intersect_kernel.py). Everything else takes the XLA
+path: a lax.scan with one triangle per step over (N,)-shaped lanes, and the
+stackless BVH / per-instance BLAS of ops/bvh.py above BVH_THRESHOLD
+(SURVEY.md §7 "hard parts" #1).
 
 Motion blur: every shape is an instance with two keyframe matrices; rays are
 transformed by the *exact* inverse of the lerped matrix at their own time
@@ -30,7 +30,7 @@ import jax.numpy as jnp
 from ..core.vec import (Vec3, dot, cross, normalize, coordinate_system,
                         cmat_lerp, cmat_inverse, cmat_apply_point,
                         cmat_apply_vector, cmat_apply_transpose_vector)
-from .types import Ray, SurfaceInteraction
+from .types import Ray, SurfaceInteraction, HitRecord, SPH_SLOT_BASE
 
 # triangle component columns (all (T,) arrays)
 _TRI_COLS = ("v0x", "v0y", "v0z", "e1x", "e1y", "e1z", "e2x", "e2y", "e2z",
@@ -58,7 +58,7 @@ class SceneArrays:
            "env_rot", "env_rot_fwd", "env_coeff", "em_tri_cdf",
            "med_params", "inst_int_medium", "med_grid", "med_w2g",
            "sggx_grid", "sggx_w2g",
-           "bvh", "anim_blas", "chunk_aabb", "mesh_attr", "measured",
+           "bvh", "anim_blas", "mesh_attr", "measured",
            "measured_pol",
            "bsphere_radius", "bsphere_center"]
     )
@@ -102,34 +102,13 @@ class SceneArrays:
 
     @property
     def has_accel(self) -> bool:
-        """True when any BVH exists (static TLAS or an animated BLAS) —
-        routes ray queries to the XLA gather path instead of Pallas."""
+        """True when any BVH exists (static TLAS or an animated BLAS)."""
         return self.bvh is not None or any(
             b is not None for b in (self.anim_blas or ()))
 
 
 jax.tree_util.register_pytree_node(
     SceneArrays, SceneArrays.tree_flatten, SceneArrays.tree_unflatten)
-
-
-def _morton_order(cen: np.ndarray) -> np.ndarray:
-    """Permutation sorting points by 30-bit 3D Morton code — spatial
-    locality for the streamed kernel's chunk AABBs."""
-    lo, hi = cen.min(axis=0), cen.max(axis=0)
-    q = ((cen - lo) / np.maximum(hi - lo, 1e-20)
-         * 1023.0).astype(np.uint32)
-
-    def spread(x):
-        x = x.astype(np.uint64)
-        x = (x | (x << np.uint64(16))) & np.uint64(0x030000FF)
-        x = (x | (x << np.uint64(8))) & np.uint64(0x0300F00F)
-        x = (x | (x << np.uint64(4))) & np.uint64(0x030C30C3)
-        x = (x | (x << np.uint64(2))) & np.uint64(0x09249249)
-        return x
-
-    code = ((spread(q[:, 0]) << np.uint64(2))
-            | (spread(q[:, 1]) << np.uint64(1)) | spread(q[:, 2]))
-    return np.argsort(code, kind="stable")
 
 
 class Scene:
@@ -553,17 +532,6 @@ class Scene:
         for ii, sh in enumerate(self.shapes):
             m0, m1, t0, t1 = sh.to_world.matrices()
             animated = sh.to_world.animated
-            if (getattr(sh, "mesh", None) is not None
-                    and sh.mesh.faces.shape[0] > 64
-                    and not getattr(sh.mesh, "_morton_ordered", False)):
-                # spatially order triangles (object space, transform-safe
-                # for shared meshes) so the streamed kernel's 32-triangle
-                # chunks carry tight AABBs — the TPU replacement for BVH
-                # leaf locality (ops/intersect_stream.py culling)
-                f = sh.mesh.faces
-                cen = sh.mesh.vertices[f].mean(axis=1)
-                sh.mesh.faces = f[_morton_order(cen)]
-                sh.mesh._morton_ordered = True
             inst_m0.append(m0[:3, :4].reshape(-1))
             inst_m1.append(m1[:3, :4].reshape(-1))
             inst_t0.append(t0)
@@ -764,27 +732,6 @@ class Scene:
         else:
             kw["mesh_attr"] = None
 
-        # per-chunk world AABBs for the streamed kernel's block culling
-        from ..ops.intersect_stream import chunk_aabbs
-
-        def _cat3(cols, a, b, c):
-            if not cols[a]:
-                return np.zeros((0, 3), np.float32)
-            return np.stack([np.concatenate(cols[a]),
-                             np.concatenate(cols[b]),
-                             np.concatenate(cols[c])], axis=1)
-
-        am0 = [np.asarray(inst_m0[i]).reshape(3, 4) for i, _, _ in anim_ranges]
-        am1 = [np.asarray(inst_m1[i]).reshape(3, 4) for i, _, _ in anim_ranges]
-        kw["chunk_aabb"] = jnp.asarray(chunk_aabbs(
-            n_static, tuple(anim_ranges),
-            _cat3(s_cols, "v0x", "v0y", "v0z"),
-            _cat3(s_cols, "e1x", "e1y", "e1z"),
-            _cat3(s_cols, "e2x", "e2y", "e2z"),
-            _cat3(a_cols, "v0x", "v0y", "v0z"),
-            _cat3(a_cols, "e1x", "e1y", "e1z"),
-            _cat3(a_cols, "e2x", "e2y", "e2z"),
-            am0, am1))
         self._compiled = SceneArrays(
             inst_m0c=jnp.asarray(
                 np.stack(inst_m0).T if inst_m0 else np.zeros((12, 1)),
@@ -898,8 +845,8 @@ def _intersect_scan(o: Vec3, d: Vec3, maxt, cols, start: int, count: int,
     """Möller-Trumbore over triangles [start, start+count).
 
     ``cols``: dict of (T,) arrays; per scan step the triangle's 9 floats are
-    scalars broadcast against (N,) lanes — zero layout waste.
-    ``best``: (t, idx) carry. Returns (t, idx).
+    scalars broadcast against (N,) lanes. ``best``: (t, idx) carry.
+    Returns (t, idx).
     """
     sl = slice(start, start + count)
     xs = (cols["v0x"][sl], cols["v0y"][sl], cols["v0z"][sl],
@@ -956,10 +903,10 @@ def _gather_tri(sa: SceneArrays, prefix: str, idx, names):
 
 
 def _hit_reference(sa: SceneArrays, ray: Ray, include_static: bool = True):
-    """Reference (non-Pallas) closest-hit: scanned brute force producing the
-    same fat payload as ops.intersect_kernel.intersect_pallas — serves as
-    the 'scalar variant' oracle for kernel regression tests (SURVEY.md §4).
-    """
+    """Plain XLA closest hit: scanned brute force (BVH/BLAS above
+    BVH_THRESHOLD) producing the same fat payload as the GPU kernel
+    ops.intersect_kernel.closest_hit — also the oracle for kernel tests
+    (the 'scalar variant' of SURVEY.md §4)."""
     n = ray.o.x.shape[0]
     dt = ray.o.x.dtype
     best_t = jnp.full((n,), jnp.inf, dt)
@@ -1055,7 +1002,6 @@ def _hit_reference(sa: SceneArrays, ray: Ray, include_static: bool = True):
         ns = where3(is_anim, cmat_apply_transpose_vector(inv_t, ns), ns)
 
     inst_out = jnp.where(best_idx >= 0, g["inst"], -1)
-    from ..ops.intersect_kernel import HitRecord, _SPH_SLOT_BASE
     hit = HitRecord(best_t, best_idx, inst_out, u, v,
                     gn.x, gn.y, gn.z, ns.x, ns.y, ns.z, uv_u, uv_v)
     if sa.n_spheres:
@@ -1066,7 +1012,6 @@ def _hit_reference(sa: SceneArrays, ray: Ray, include_static: bool = True):
 def _spheres_reference(sa: SceneArrays, ray: Ray, hit):
     """Analytic spheres for the oracle path (unit sphere in object space,
     reference src/shapes/sphere.cpp)."""
-    from ..ops.intersect_kernel import _SPH_SLOT_BASE
     import math as _m
     out = hit
     for s in range(sa.n_spheres):
@@ -1103,7 +1048,7 @@ def _spheres_reference(sa: SceneArrays, ray: Ray, hit):
         v = jnp.arccos(jnp.clip(pn.z, -1.0, 1.0)) * (1.0 / _m.pi)
         out = out._replace(
             t=jnp.where(hit_m, t, out.t),
-            prim=jnp.where(hit_m, _SPH_SLOT_BASE + s, out.prim),
+            prim=jnp.where(hit_m, SPH_SLOT_BASE + s, out.prim),
             inst=jnp.where(hit_m, sa.sph_inst[s], out.inst),
             u=jnp.where(hit_m, 0.0, out.u),
             v=jnp.where(hit_m, 0.0, out.v),
@@ -1118,20 +1063,38 @@ def _spheres_reference(sa: SceneArrays, ray: Ray, hit):
     return out
 
 
-USE_PALLAS = True
+# Scenes with at most this many triangles (static + animated) take the
+# fused GPU kernel on the GPU; every other scene, and every other platform,
+# takes the XLA path (_hit_reference, the BVH/BLAS of ops/bvh.py).
+SMALL_SCENE_THRESHOLD = 192
+
+# render/ad.py clears this while tracing gradients: the GPU kernel defines
+# no VJP, so differentiated renders run the XLA path on every platform.
+USE_CUSTOM_KERNEL = True
 
 
-def _closest_hit(sa: SceneArrays, ray: Ray, active=None):
-    # TPU: ALWAYS the Pallas path. The gather-based BVH is unusable on
-    # TPU — XLA/Mosaic gathers serialize on the scalar core inside kernels,
-    # so pointer-chasing traversal is orders of magnitude slower than the
-    # chunk-culled dense stream (ops/intersect_stream.py). Device-wide
-    # XLA sorts ARE fast, so large scenes additionally reorder the
-    # wavefront for block coherence (ops/ray_binning.py). On CPU
-    # (tests/oracle) the BVH/BLAS path is the accelerator.
-    if USE_PALLAS and jax.default_backend() not in ("cpu",):
-        from ..ops.intersect_kernel import intersect_pallas
-        return intersect_pallas(sa, ray, active)
+def query_platform() -> str:
+    """Platform the ray queries are traced for: the default device's if
+    one is set (``jax.default_device``), else the default backend's."""
+    dev = jax.config.jax_default_device
+    if dev is None:
+        return jax.default_backend()
+    return dev if isinstance(dev, str) else dev.platform
+
+
+def ray_query_route(sa: SceneArrays, platform: str = None) -> str:
+    """'kernel' (ops/intersect_kernel.py, GPU only) or 'xla'."""
+    platform = platform or query_platform()
+    if (USE_CUSTOM_KERNEL and platform == "gpu"
+            and sa.n_static_tris + sa.n_anim_tris <= SMALL_SCENE_THRESHOLD):
+        return "kernel"
+    return "xla"
+
+
+def _closest_hit(sa: SceneArrays, ray: Ray):
+    if ray_query_route(sa) == "kernel":
+        from ..ops.intersect_kernel import closest_hit
+        return closest_hit(sa, ray)
     return _hit_reference(sa, ray)
 
 
@@ -1164,16 +1127,15 @@ def build_si(sa: SceneArrays, ray: Ray, hit, active=None) -> SurfaceInteraction:
 
 def ray_intersect(sa: SceneArrays, ray: Ray, active=None) -> SurfaceInteraction:
     """Full surface-interaction query (reference scene.cpp:125-137)."""
-    hit = _closest_hit(sa, ray, active)
+    hit = _closest_hit(sa, ray)
     return build_si(sa, ray, hit, active)
 
 
 def ray_test(sa: SceneArrays, ray: Ray, active=None):
     """Shadow/any-hit query (reference scene.cpp ray_test)."""
-    if USE_PALLAS and jax.default_backend() not in ("cpu",):
-        # TPU: always Pallas (see _closest_hit for the gather rationale)
-        from ..ops.intersect_kernel import ray_test_pallas
-        occluded = ray_test_pallas(sa, ray, active)
+    if ray_query_route(sa) == "kernel":
+        from ..ops.intersect_kernel import any_hit
+        occluded = any_hit(sa, ray)
     elif sa.has_accel:
         if sa.bvh is not None:
             from ..ops.bvh import bvh_any
@@ -1198,8 +1160,7 @@ def ray_test(sa: SceneArrays, ray: Ray, active=None):
 
 def gather_small(table, idx, size: int = None):
     """Lookup into a tiny (size,) table by (N,) indices via unrolled selects
-    — avoids XLA gather lowering on TPU for per-lane material/emitter ids.
-    Falls back to a real gather for larger tables."""
+    (per-lane material/emitter ids); a real gather for larger tables."""
     if size is None:
         size = int(table.shape[0])
     if size > 32:

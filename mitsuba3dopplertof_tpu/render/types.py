@@ -1,9 +1,9 @@
 """Wavefront record types (component-wise SoA layout).
 
-TPU-native equivalents of the reference's Ray3f / SurfaceInteraction3f /
+Equivalents of the reference's Ray3f / SurfaceInteraction3f /
 DirectionSample3f Dr.Jit structs (reference include/mitsuba/core/ray.h,
-include/mitsuba/render/interaction.h). Every field is an (N,) array — see
-core/vec.py for why (N,3) layouts are 40x slower on TPU.
+include/mitsuba/render/interaction.h). Every field is an (N,) array, one
+component per array (see core/vec.py).
 """
 
 from __future__ import annotations
@@ -70,6 +70,28 @@ class SurfaceInteraction(NamedTuple):
         return Ray(o, d, self.time, dist * (1.0 - SHADOW_EPSILON))
 
 
+# prim slots at or above this are analytic spheres (slot - base = sphere)
+SPH_SLOT_BASE = 1 << 28
+
+
+class HitRecord(NamedTuple):
+    """Closest-hit payload of a ray query: everything build_si needs,
+    already in world space, so shading does no per-lane gathers."""
+    t: jnp.ndarray        # (N,) inf on miss
+    prim: jnp.ndarray     # (N,) int32 global primitive slot (-1 miss)
+    inst: jnp.ndarray     # (N,) int32 instance id (-1 miss)
+    u: jnp.ndarray        # barycentrics of the hit (0 on spheres)
+    v: jnp.ndarray
+    gnx: jnp.ndarray      # geometric normal, world space, unnormalized
+    gny: jnp.ndarray
+    gnz: jnp.ndarray
+    nsx: jnp.ndarray      # shading normal, world space, unnormalized
+    nsy: jnp.ndarray
+    nsz: jnp.ndarray
+    uv_u: jnp.ndarray
+    uv_v: jnp.ndarray
+
+
 class DirectionSample(NamedTuple):
     """NEE sample record (reference include/mitsuba/render/records.h)."""
     p: Vec3
@@ -81,5 +103,5 @@ class DirectionSample(NamedTuple):
     emitter: jnp.ndarray    # (N,) int32 emitter index (-1 = none)
 
 
-__all__ = ["Ray", "SurfaceInteraction", "DirectionSample",
-           "RAY_EPSILON", "SHADOW_EPSILON"]
+__all__ = ["Ray", "SurfaceInteraction", "DirectionSample", "HitRecord",
+           "SPH_SLOT_BASE", "RAY_EPSILON", "SHADOW_EPSILON"]

@@ -101,3 +101,33 @@ def check_vectorization(kernel, arg_dims=(), width=125, atol=1e-6):
 
 __all__ = ["find_resource", "fresolver_append_path", "tmpfile",
            "make_tmpfile", "check_vectorization"]
+
+
+def _erf(x):
+    # Abramowitz-Stegun 7.1.26 (|eps| < 1.5e-7) — scipy-free
+    sign = np.sign(x)
+    x = np.abs(x)
+    t = 1.0 / (1.0 + 0.3275911 * x)
+    y = 1.0 - (((((1.061405429 * t - 1.453152027) * t) + 1.421413741)
+                * t - 0.284496736) * t + 0.254829592) * t * np.exp(-x * x)
+    return sign * y
+
+
+def z_test(mean, spp, ref, ref_var):
+    """Reference z_test (test_renders.py:160-177): p-values of the
+    per-pixel hypothesis 'this render agrees with the reference mean'."""
+    ref_var = np.maximum(ref_var, 1e-4)
+    z = np.abs(mean - ref) * np.sqrt(spp / ref_var)
+    cdf = 0.5 * (1.0 + _erf(z / np.sqrt(2.0)))
+    return 2.0 * (1.0 - cdf)
+
+
+def run_z_test(img, spp, ref, ref_var, significance=0.01):
+    """Fraction of pixels accepted at a Šidák-corrected ``significance``;
+    returns (fraction, per-pixel alpha, p-values)."""
+    p = z_test(img, spp, ref, ref_var)
+    n_pix = ref.size
+    alpha = 1.0 - (1.0 - significance) ** (1.0 / n_pix)   # Šidák
+    passed = np.count_nonzero(p > alpha)
+    return passed / n_pix, alpha, p
+

@@ -1,8 +1,8 @@
-"""AOV-guided denoiser (the TPU-native analog of the reference's
+"""AOV-guided denoiser (the analog of the reference's
 OptixDenoiser wrapper, reference src/render/optixdenoiser.cpp:20-120).
 
 The reference delegates to OptiX's pretrained AI denoiser — unavailable
-off-NVIDIA. The TPU-native equivalent keeps the same API surface
+off-NVIDIA. This equivalent keeps the same API surface
 (``Denoiser(input_size, albedo=, normals=, temporal=)(noisy, albedo=,
 normals=, flow=)``) and implements a cross/joint-bilateral filter guided
 by the same auxiliary AOVs, expressed as a dense shift-and-accumulate over

@@ -25,8 +25,9 @@ import os
 
 import numpy as np
 
-_CACHE = os.path.join(os.path.expanduser("~"), ".cache",
-                      "mitsuba3dopplertof_tpu", "hero")
+from ..core.fresolver import cache_dir as _cache_dir
+
+_CACHE = _cache_dir("hero")
 
 
 def _knot_obj(path: str, nu: int = 96, nv: int = 56, p: int = 2,

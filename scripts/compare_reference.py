@@ -7,9 +7,8 @@ integrator.cpp:227-263) and quantifies agreement:
   * high-pass (5x5-residual) noise correlation — bitwise-draw parity evidence
   * smooth (9x9-mean) residual — systematic differences
 
-Observed on TPU v5e (2026-08): relRMSE 19.3% vs a 26.1% independent floor;
-noise correlation 0.965 overall / 0.983 on the moving cubes; smooth residual
-~2.1% of signal (at the smoothing-noise floor).
+Image statistics of a run (relRMSE, noise correlation, smooth residual)
+are device-independent; no run on the H100 has been recorded yet.
 """
 
 import numpy as np

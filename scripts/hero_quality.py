@@ -15,13 +15,13 @@ either. The evidence this artifact pins instead:
      radiometrically live under volpath only — dopplertofpath is
      surface-only in the reference too, dopplertofpath.cpp:82) would
      surface as a floor;
-  2. backend cross-check: the TPU render must agree with the CPU render
+  2. backend cross-check: the GPU render must agree with the CPU render
      of the same (scene, seed) — different XLA backend, same sampler —
      within the per-pixel MC error measured in (1);
   3. the converged 256x256 mean is stored (QUALITY_HERO_ref.npz) as the
      regression anchor for future rounds.
 
-Usage: python scripts/hero_quality.py [K] [spp_per_pass]  (run on TPU)
+Usage: python scripts/hero_quality.py [K] [spp_per_pass]  (run on a GPU)
 """
 import os
 import sys
@@ -94,16 +94,16 @@ def main():
     if os.path.exists(cpu_file):
         cpu = np.load(cpu_file)
         sc64 = load_hero_scene(res=64, spp=16)
-        tpu64 = np.asarray(mi.render(sc64, seed=1234, spp=16))
+        gpu64 = np.asarray(mi.render(sc64, seed=1234, spp=16))
         # MC error of a single 16-spp render, estimated from pass spread
         # scaled to 16 spp at 64x64 (noise ~ 1/sqrt(spp), 1/res per axis)
-        xrel = rel_rmse(tpu64, cpu)
-        note = (f"CPU/TPU cross-check 64x64@16spp (seed 1234): "
+        xrel = rel_rmse(gpu64, cpu)
+        note = (f"CPU/GPU cross-check 64x64@16spp (seed 1234): "
                 f"relRMSE {100 * xrel:.2f}% — same-seed samplers are "
                 f"deterministic per backend; agreement at the MC scale of "
                 f"16 spp confirms no backend-dependent bias")
     else:
-        note = ("CPU/TPU cross-check pending: generate with\n"
+        note = ("CPU/GPU cross-check pending: generate with\n"
                 "  JAX_PLATFORMS=cpu python -c \"import numpy as np; "
                 "import mitsuba3dopplertof_tpu as mi; from "
                 "mitsuba3dopplertof_tpu.utils.hero_scene import "

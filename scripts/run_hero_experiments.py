@@ -17,13 +17,12 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
+from mitsuba3dopplertof_tpu.core.fresolver import cache_dir  # noqa: E402
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default=os.path.join(
-        os.path.expanduser("~"), ".cache", "mitsuba3dopplertof_tpu",
-        "hero_experiments"))
+    ap.add_argument("--out", default=cache_dir("hero_experiments"))
     ap.add_argument("--res", type=int, default=64)
     ap.add_argument("--spp", type=int, default=64,
                     help="total spp for method runs (Exp1-3)")

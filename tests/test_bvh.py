@@ -1,4 +1,4 @@
-"""Stackless wavefront BVH (ops/bvh.py) — the TPU-native analog of the
+"""Stackless wavefront BVH (ops/bvh.py) — the analog of the
 reference's Embree/OptiX acceleration (scene_embree.inl, scene_optix.inl)."""
 
 import numpy as np

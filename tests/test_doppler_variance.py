@@ -77,8 +77,7 @@ def test_velocity_estimation_pipeline():
     """End-to-end paper pipeline (reference main_animation.py:101-157):
     homodyne + heterodyne pairs at 2 phase offsets -> multi-phase ratio ->
     radial velocity; compared against the velocity integrator's GT on the
-    canonical scene (cubes at -10/+10 m/s). On TPU at 2048 spp this
-    recovers medians -9.3/+10.3 m/s with static regions at ~0.1 m/s."""
+    canonical scene (cubes at -10/+10 m/s)."""
     from mitsuba3dopplertof_tpu.utils.image import (
         to_tof_image, calc_velocity_from_homo_heteros)
     scene = mi.load_file("/root/reference/configs_example/scene.xml",

@@ -7,49 +7,21 @@ MC noise passes at any seed while a systematic bias of ~1.5x the
 single-sample std fails decisively.
 
 References live in tests/data/renders/ (scripts/gen_render_refs.py).
-Runs on the CPU suite by default; under MI_TPU_TESTS=1 the same Z-test
-gates the on-chip pipeline against the same refs (the comparison is
-statistical, so backend-dependent reassociation cannot trip it while a
-real lowering bug will)."""
+The same Z-test gates the GPU pipeline against the same refs (the
+comparison is statistical, so backend-dependent reassociation cannot trip
+it while a real lowering bug will): chip_smoke.py runs the hero one, and
+the `gpu`-marked tests run on the card with MI_GPU_TESTS=1."""
 import os
 
 import numpy as np
 import pytest
 
 import mitsuba3dopplertof_tpu as mi
+from mitsuba3dopplertof_tpu.test.util import run_z_test
 
 REF_DIR = os.path.join(os.path.dirname(__file__), "data", "renders")
-SIGNIFICANCE = 0.01
 ACCEPT_FRACTION = 0.9975          # reference test_renders.py:230
 SPP_BUDGET = int(5e5)
-
-
-def _erf(x):
-    # Abramowitz-Stegun 7.1.26 (|eps| < 1.5e-7) — scipy-free
-    sign = np.sign(x)
-    x = np.abs(x)
-    t = 1.0 / (1.0 + 0.3275911 * x)
-    y = 1.0 - (((((1.061405429 * t - 1.453152027) * t) + 1.421413741)
-                * t - 0.284496736) * t + 0.254829592) * t * np.exp(-x * x)
-    return sign * y
-
-
-def z_test(mean, spp, ref, ref_var):
-    """Reference z_test (test_renders.py:160-177): p-values of the
-    per-pixel hypothesis 'this render agrees with the reference mean'."""
-    ref_var = np.maximum(ref_var, 1e-4)
-    z = np.abs(mean - ref) * np.sqrt(spp / ref_var)
-    cdf = 0.5 * (1.0 + _erf(z / np.sqrt(2.0)))
-    return 2.0 * (1.0 - cdf)
-
-
-def run_z_test(img, spp, ref, ref_var,
-               significance=SIGNIFICANCE):
-    p = z_test(img, spp, ref, ref_var)
-    n_pix = ref.size
-    alpha = 1.0 - (1.0 - significance) ** (1.0 / n_pix)   # Šidák
-    passed = np.count_nonzero(p > alpha)
-    return passed / n_pix, alpha, p
 
 
 VARIANTS = ["tpu_rgb", "tpu_spectral", "tpu_mono",
@@ -112,19 +84,18 @@ def test_z_test_accepts_fresh_realization():
         assert frac >= ACCEPT_FRACTION
 
 
-@pytest.mark.skipif(not os.environ.get("MI_TPU_TESTS"),
-                    reason="hero golden renders on the chip only (the "
-                    "full-feature scene is minutes per render on CPU; "
-                    "CPU e2e coverage lives in test_hero_scene.py)")
+@pytest.mark.gpu
 def test_render_hero_golden():
     """Scene-scale golden: the bundled hero validation scene (animated
     knot + mirror + textures + envmap + hetero smoke) Z-tested against
     its moment-integrator reference (scripts/gen_render_refs.py --scene
-    hero, generated on-chip)."""
+    hero). Runs on the card only: the full-feature scene takes minutes
+    per render on the CPU, whose end-to-end coverage lives in
+    test_hero_scene.py."""
     path = os.path.join(REF_DIR, "ref_hero_tpu_rgb.npz")
     if not os.path.exists(path):
         pytest.skip("missing ref_hero_tpu_rgb.npz "
-                    "(gen_render_refs.py --scene hero on chip)")
+                    "(gen_render_refs.py --scene hero)")
     d = np.load(path)
     ref, var, res = d["mean"], d["var"], int(d["res"])
     from mitsuba3dopplertof_tpu.utils.hero_scene import load_hero_scene
